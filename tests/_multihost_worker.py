@@ -3,7 +3,7 @@
 Launched by ``test_multihost.py`` with argv = (process_id, coordinator,
 dae_path, out_dir).  Each process owns 2 virtual CPU devices; the global
 mesh spans 4 devices across both processes (SURVEY.md §4's fake-backend
-idiom for multi-host logic without a pod).  Exits nonzero on any mismatch.
+idiom for multi-host logic without a cluster).  Exits nonzero on any mismatch.
 """
 
 import os
@@ -29,7 +29,7 @@ if cache_dir:
     jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
-from lens_flare_tpu.parallel.mesh import init_distributed
+from lens_flare.parallel.mesh import init_distributed
 
 init_distributed(coordinator, num_processes=2, process_id=pid)
 
@@ -40,14 +40,14 @@ assert len(jax.local_devices()) == 2
 import numpy as np
 import jax.numpy as jnp
 
-from lens_flare_tpu.accel import build_bvh
-from lens_flare_tpu.integrator.lights import lights_to_device
-from lens_flare_tpu.integrator.path import SceneBundle, make_settings, render_wavefront
-from lens_flare_tpu.integrator.shading import bsdf_to_device
-from lens_flare_tpu.ops import scene_to_device
-from lens_flare_tpu.parallel.mesh import make_mesh, replicate, shard_batch
-from lens_flare_tpu.scene.build import load_scene
-from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+from lens_flare.accel import build_bvh
+from lens_flare.integrator.lights import lights_to_device
+from lens_flare.integrator.path import SceneBundle, make_settings, render_wavefront
+from lens_flare.integrator.shading import bsdf_to_device
+from lens_flare.ops import scene_to_device
+from lens_flare.parallel.mesh import make_mesh, replicate, shard_batch
+from lens_flare.scene.build import load_scene
+from lens_flare.scene.camera import Camera, place_from_scene_info
 
 scene, info = load_scene(dae_path)
 lo, hi = scene.primitive_bboxes()
@@ -103,8 +103,8 @@ assert np.asarray(stats_g)[0] > 0  # counters all-reduced over both processes
 # the sharded differentiable lens-train step also runs across processes
 import optax
 
-from lens_flare_tpu.lens.prescription import reference_prescription
-from lens_flare_tpu.parallel.render import ghost_image_from_lens, make_train_step
+from lens_flare.lens.prescription import reference_prescription
+from lens_flare.parallel.render import ghost_image_from_lens, make_train_step
 
 lens = reference_prescription()
 tex = jnp.ones((8, 8), jnp.float32)

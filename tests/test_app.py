@@ -1,6 +1,6 @@
 """Interactive Application state machine + event surface (SURVEY 2.26).
 
-Drives ``lens_flare_tpu.app.Application`` headless with scripted key /
+Drives ``lens_flare.app.Application`` headless with scripted key /
 mouse events and asserts the reference's ``Application::keyboard_event`` /
 ``mouse_*`` semantics (application.cpp:428-631) and
 ``RaytracedRenderer::key_press`` knob changes (raytraced_renderer.cpp:
@@ -10,8 +10,8 @@ mouse events and asserts the reference's ``Application::keyboard_event`` /
 import numpy as np
 import pytest
 
-from lens_flare_tpu.app import KEY_LEFT, KEY_RIGHT, KEY_UP, LEFT, RIGHT, Application, Mode
-from lens_flare_tpu.renderer import Renderer
+from lens_flare.app import KEY_LEFT, KEY_RIGHT, KEY_UP, LEFT, RIGHT, Application, Mode
+from lens_flare.renderer import Renderer
 
 
 @pytest.fixture(scope="module")

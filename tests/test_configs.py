@@ -16,7 +16,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lens_flare_tpu.renderer import Renderer
+from lens_flare.renderer import Renderer
 
 APERTURE = "/root/reference/final_apertures/pent4_13.png"
 GHOST_AP = "/root/reference/apertures/pentsmall.png"
@@ -57,8 +57,8 @@ def test_config1_pyramid_deterministic_snapshot(dae_dir):
 
 def _dof_scene():
     """Small emissive quad at y=0 on black, camera above at y=2 (Y-up)."""
-    from lens_flare_tpu.scene.build import BSDFTable, FlatScene, LightTable
-    from lens_flare_tpu.scene.collada import BSDF_EMISSION, MaterialInfo
+    from lens_flare.scene.build import BSDFTable, FlatScene, LightTable
+    from lens_flare.scene.collada import BSDF_EMISSION, MaterialInfo
 
     s = 0.15
     q = np.array(
@@ -94,7 +94,7 @@ def _dof_scene():
 
 
 def _render_dof(scene, focal_distance):
-    from lens_flare_tpu.scene.camera import Camera
+    from lens_flare.scene.camera import Camera
 
     cam = Camera()
     cam.place(np.zeros(3), 0.0, 0.0, 2.0, 0.1, 50.0)  # camera at (0, 2, 0)
@@ -132,12 +132,11 @@ def test_config2_thin_lens_bokeh_dof():
 def test_config4_flare_composite_1080p_budget(dae_dir):
     """config 4: full 1080p ghost+starburst+falloff composite within budget.
 
-    The CPU CI budget is deliberately loose (the TPU path runs this in
-    ~30 ms); it exists to catch accidental eager dispatch or O(W*H*A^2)
+    The CPU CI budget is deliberately loose; it exists to catch accidental eager dispatch or O(W*H*A^2)
     regressions (the reference's per-pixel DFT would take hours here,
     pathtracer.cpp:947-1041).
     """
-    from lens_flare_tpu.flare.pipeline import FlarePipeline
+    from lens_flare.flare.pipeline import FlarePipeline
 
     r = Renderer(
         width=1920, height=1080, ns_aa=1, max_ray_depth=1, indirect=False,
@@ -178,9 +177,9 @@ def test_northstar_fd_gradient_through_full_composite():
     curvature, a lens spacing, AND two aperture-mask texels (the starburst
     input), all checked against central differences in f64.
     """
-    from lens_flare_tpu.diff.optimize import ghost_image
-    from lens_flare_tpu.flare.starburst import aperture_fft, starburst_field
-    from lens_flare_tpu.lens.prescription import reference_prescription
+    from lens_flare.diff.optimize import ghost_image
+    from lens_flare.flare.starburst import aperture_fft, starburst_field
+    from lens_flare.lens.prescription import reference_prescription
 
     jax.config.update("jax_enable_x64", True)
     try:

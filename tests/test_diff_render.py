@@ -9,9 +9,8 @@ radiometric parameters, ``jax.grad`` of the fixed-RNG estimator must match
 central finite differences of the *same* estimator essentially exactly.
 
 Covered parameters: emitter radiance (BSDF row), diffuse albedo (depth-2 so
-it enters nonlinearly), NEE light radiance, envmap texels.  Covered trace
-paths: XLA while-loop kernels and the Pallas packet kernels (interpret mode
-on CPU).  Plus the round-goal demo: recovering an emitter color from a
+it enters nonlinearly), NEE light radiance, envmap texels, through the XLA
+traversal (the GPU kernel shares its detached-trace contract).  Plus the round-goal demo: recovering an emitter color from a
 target render by gradient descent.
 """
 
@@ -20,38 +19,28 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lens_flare_tpu.accel import build_bvh
-from lens_flare_tpu.integrator.lights import lights_to_device
-from lens_flare_tpu.integrator.path import SceneBundle, make_settings
-from lens_flare_tpu.integrator.shading import bsdf_to_device
-from lens_flare_tpu.ops import scene_to_device
-from lens_flare_tpu.diff.render import recover_emitter, render_image, set_emitter_color
-from lens_flare_tpu.scene.build import load_scene
-from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+from lens_flare.accel import build_bvh
+from lens_flare.integrator.lights import lights_to_device
+from lens_flare.integrator.path import SceneBundle, make_settings
+from lens_flare.integrator.shading import bsdf_to_device
+from lens_flare.ops import scene_to_device
+from lens_flare.diff.render import recover_emitter, render_image, set_emitter_color
+from lens_flare.scene.build import load_scene
+from lens_flare.scene.camera import Camera, place_from_scene_info
 
 W = H = 8
 SPP = 2
 
 
-def _make_case(dae_dir, pallas=False, depth=2):
+def _make_case(dae_dir, depth=2):
     scene, info = load_scene(dae_dir / "sky" / "CBspheres_lambertian.dae")
     lo, hi = scene.primitive_bboxes()
     bvh = build_bvh(lo, hi)
-    pscene = None
-    if pallas:
-        from lens_flare_tpu.accel.wide import build_wide_bvh
-        from lens_flare_tpu.ops.intersect_pallas import PallasScene
-
-        pscene = PallasScene(
-            build_wide_bvh(scene.tri_p), scene.sph_center, scene.sph_radius,
-            scene.num_triangles, interpret=True,
-        )
     bundle = SceneBundle(
         scene=scene_to_device(scene, bvh),
         bsdfs=bsdf_to_device(scene.bsdfs),
         lights=lights_to_device(scene.lights),
         env=None,
-        pscene=pscene,
     )
     settings = make_settings(
         scene.lights, ns_aa=SPP, max_ray_depth=depth, ns_area_light=1,
@@ -152,41 +141,12 @@ def test_grad_light_radiance_fd(dae_dir):
     )
 
 
-def test_grad_pallas_path_fd(dae_dir):
-    """Same FD checks through the Pallas packet kernels (interpret mode).
-
-    The detached-trace contract must hold for the production TPU path: no
-    cotangent may reach the pallas_call, and the shading-chain gradient must
-    be identical to the XLA path's.
-    """
-    bundle_x, objective_x, emit_row, wall_row, *_ = _make_case(dae_dir, pallas=False)
-    bundle_p, objective_p, *_ = _make_case(dae_dir, pallas=True)
-
-    def put_emit(b, r):
-        return b._replace(
-            bsdfs=b.bsdfs._replace(radiance=b.bsdfs.radiance.at[emit_row].set(r))
-        )
-
-    g_p = _fd_check(
-        objective_p, bundle_p,
-        get=lambda b: b.bsdfs.radiance[emit_row], put=put_emit,
-        eps=0.1, rtol=2e-2,
-    )
-    g_x = np.asarray(
-        jax.grad(lambda r: objective_x(put_emit(bundle_x, r)))(
-            bundle_x.bsdfs.radiance[emit_row]
-        )
-    )
-    # both trace paths produce the same hits, so the shading gradients agree
-    np.testing.assert_allclose(g_p, g_x, rtol=1e-4, atol=1e-6)
-
-
 def test_grad_envmap_texels_fd(dae_dir):
     """d(pixels)/d(envmap texels) through the miss shader + NEE env row."""
     import copy
 
-    from lens_flare_tpu.integrator.envlight import build_env
-    from lens_flare_tpu.integrator.lights import LT_ENV
+    from lens_flare.integrator.envlight import build_env
+    from lens_flare.integrator.lights import LT_ENV
 
     scene, info = load_scene(dae_dir / "sky" / "CBspheres_lambertian.dae")
     lo, hi = scene.primitive_bboxes()

@@ -4,13 +4,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lens_flare_tpu.accel import build_bvh
-from lens_flare_tpu.integrator.lights import lights_to_device
-from lens_flare_tpu.integrator.path import SceneBundle, direct_lighting, make_settings
-from lens_flare_tpu.integrator.shading import bsdf_to_device
-from lens_flare_tpu.ops import intersect_rays, scene_to_device
-from lens_flare_tpu.oracle import tracer as oracle
-from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+from lens_flare.accel import build_bvh
+from lens_flare.integrator.lights import lights_to_device
+from lens_flare.integrator.path import SceneBundle, direct_lighting, make_settings
+from lens_flare.integrator.shading import bsdf_to_device
+from lens_flare.ops import intersect_rays, scene_to_device
+from lens_flare.oracle import tracer as oracle
+from lens_flare.scene.camera import Camera, place_from_scene_info
 
 
 def test_direct_lighting_matches_oracle(pyramid_scene):
@@ -102,24 +102,20 @@ def test_shadow_ray_rr_unbiased(dae_dir):
     Delta-light NEE lanes are traced with probability p ~ contribution and
     weighted 1/p; the high-spp mean must match the RR-off estimator within
     Monte-Carlo noise, while tracing measurably fewer shadow rays.
-    (Perf note: on this wavefront architecture the dropped lanes do NOT
-    speed up the any-hit kernels — cost is per tile, not per live lane —
-    docs/PERFORMANCE.md round-5; the feature is kept for its variance/ray
-    accounting and for future compaction-based kernels.)
     """
     import jax
 
-    from lens_flare_tpu.accel import build_bvh
-    from lens_flare_tpu.integrator.lights import lights_to_device
-    from lens_flare_tpu.integrator.path import (
+    from lens_flare.accel import build_bvh
+    from lens_flare.integrator.lights import lights_to_device
+    from lens_flare.integrator.path import (
         SceneBundle,
         make_settings,
         render_wavefront,
     )
-    from lens_flare_tpu.integrator.shading import bsdf_to_device
-    from lens_flare_tpu.ops import scene_to_device
-    from lens_flare_tpu.scene.build import load_scene
-    from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+    from lens_flare.integrator.shading import bsdf_to_device
+    from lens_flare.ops import scene_to_device
+    from lens_flare.scene.build import load_scene
+    from lens_flare.scene.camera import Camera, place_from_scene_info
 
     scene, info = load_scene(dae_dir / "pyramid.dae")
     lo, hi = scene.primitive_bboxes()
@@ -160,23 +156,21 @@ def test_shadow_ray_rr_unbiased(dae_dir):
 def test_compact_bounces_bitequal(dae_dir):
     """Bounce-wavefront live-lane compaction is a pure reordering: renders
     with compact_bounces on/off must agree to the bit (same rays, results
-    unpermuted).  Perf-wise it was REFUTED on the 1080p terrain frame
-    (1.228 -> 1.355 s, docs/PERFORMANCE.md round-5) — the kernels' own
-    per-lane dead skipping already captures the win — so it stays off by
-    default; this test keeps the mechanism honest."""
+    unpermuted).  It stays off by default; this test keeps the mechanism
+    honest."""
     import jax
 
-    from lens_flare_tpu.accel import build_bvh
-    from lens_flare_tpu.integrator.lights import lights_to_device
-    from lens_flare_tpu.integrator.path import (
+    from lens_flare.accel import build_bvh
+    from lens_flare.integrator.lights import lights_to_device
+    from lens_flare.integrator.path import (
         SceneBundle,
         make_settings,
         render_wavefront,
     )
-    from lens_flare_tpu.integrator.shading import bsdf_to_device
-    from lens_flare_tpu.ops import scene_to_device
-    from lens_flare_tpu.scene.build import load_scene
-    from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+    from lens_flare.integrator.shading import bsdf_to_device
+    from lens_flare.ops import scene_to_device
+    from lens_flare.scene.build import load_scene
+    from lens_flare.scene.camera import Camera, place_from_scene_info
 
     scene, info = load_scene(dae_dir / "pyramid.dae")
     lo, hi = scene.primitive_bboxes()
@@ -209,22 +203,21 @@ def test_compact_bounces_bitequal(dae_dir):
 
 
 def test_sort_bounces_bitequal(dae_dir):
-    """Morton-origin bounce sorting (round-5: 1.39-1.48x on HBM-streamed
-    traces, tools/ab_ray_sort.py) is a pure reordering around the trace:
+    """Morton-origin bounce sorting is a pure reordering around the trace:
     renders with sort_bounces on/off must agree to the bit."""
     import jax
 
-    from lens_flare_tpu.accel import build_bvh
-    from lens_flare_tpu.integrator.lights import lights_to_device
-    from lens_flare_tpu.integrator.path import (
+    from lens_flare.accel import build_bvh
+    from lens_flare.integrator.lights import lights_to_device
+    from lens_flare.integrator.path import (
         SceneBundle,
         make_settings,
         render_wavefront,
     )
-    from lens_flare_tpu.integrator.shading import bsdf_to_device
-    from lens_flare_tpu.ops import scene_to_device
-    from lens_flare_tpu.scene.build import load_scene
-    from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+    from lens_flare.integrator.shading import bsdf_to_device
+    from lens_flare.ops import scene_to_device
+    from lens_flare.scene.build import load_scene
+    from lens_flare.scene.camera import Camera, place_from_scene_info
 
     scene, info = load_scene(dae_dir / "pyramid.dae")
     lo, hi = scene.primitive_bboxes()

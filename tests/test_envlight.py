@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lens_flare_tpu.integrator import envlight
+from lens_flare.integrator import envlight
 
 
 def _random_env(h=16, w=32, seed=0):

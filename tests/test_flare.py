@@ -6,12 +6,12 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax
 
-from lens_flare_tpu.flare.starburst import aperture_fft, starburst_field
-from lens_flare_tpu.lens.aperture import ApertureTexture
-from lens_flare_tpu.lens.ghosts import splat_ghosts
-from lens_flare_tpu.lens.paraxial import reference_ghost_pairs, trace_all_ghosts
-from lens_flare_tpu.lens.prescription import reference_prescription
-from lens_flare_tpu.oracle import flare as oracle
+from lens_flare.flare.starburst import aperture_fft, starburst_field
+from lens_flare.lens.aperture import ApertureTexture
+from lens_flare.lens.ghosts import splat_ghosts
+from lens_flare.lens.paraxial import reference_ghost_pairs, trace_all_ghosts
+from lens_flare.lens.prescription import reference_prescription
+from lens_flare.oracle import flare as oracle
 
 
 def _toy_aperture(n=12, seed=0):
@@ -150,8 +150,8 @@ def test_find_sun_on_vertical_axis():
     """
     import math
 
-    from lens_flare_tpu.flare.pipeline import find_sun
-    from lens_flare_tpu.scene.build import LT_DIRECTIONAL, LightTable
+    from lens_flare.flare.pipeline import find_sun
+    from lens_flare.scene.build import LT_DIRECTIONAL, LightTable
 
     class FakeCamera:
         def __init__(self, ns):
@@ -191,7 +191,7 @@ def test_multi_sun_starburst_and_falloff_semantics():
     contrast, IS per-sun (per-light origins at 1052-1056).  The pipeline
     must reproduce both behaviors exactly.
     """
-    from lens_flare_tpu.flare.pipeline import FlarePipeline
+    from lens_flare.flare.pipeline import FlarePipeline
 
     ap = ApertureTexture.from_array(_toy_aperture(16))
     o2 = np.array([[0.3, 0.6], [0.7, 0.2]], np.float32)

@@ -10,7 +10,7 @@ scale-invariant: intensity * quad area = (10/s^2) * (2s)^2 * mean(tex)
 import jax.numpy as jnp
 import numpy as np
 
-from lens_flare_tpu.lens.ghosts import splat_ghosts, splat_ghosts_fast
+from lens_flare.lens.ghosts import splat_ghosts, splat_ghosts_fast
 
 
 def _box_down(img, f):

@@ -10,19 +10,19 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lens_flare_tpu.accel import build_bvh
-from lens_flare_tpu.integrator.lights import lights_to_device
-from lens_flare_tpu.integrator.path import (
+from lens_flare.accel import build_bvh
+from lens_flare.integrator.lights import lights_to_device
+from lens_flare.integrator.path import (
     SceneBundle,
     make_settings,
     radiance_sample,
     render_wavefront,
 )
-from lens_flare_tpu.integrator.shading import bsdf_to_device
-from lens_flare_tpu.ops import scene_to_device
-from lens_flare_tpu.oracle import tracer as oracle
-from lens_flare_tpu.scene.build import load_scene
-from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+from lens_flare.integrator.shading import bsdf_to_device
+from lens_flare.ops import scene_to_device
+from lens_flare.oracle import tracer as oracle
+from lens_flare.scene.build import load_scene
+from lens_flare.scene.camera import Camera, place_from_scene_info
 
 
 def test_render_matches_oracle_expectation(dae_dir):

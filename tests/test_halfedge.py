@@ -9,7 +9,7 @@ checks after every mutation.
 import numpy as np
 import pytest
 
-from lens_flare_tpu.scene.halfedge import (
+from lens_flare.scene.halfedge import (
     HalfedgeMesh,
     loop_subdivide,
     weld,
@@ -293,10 +293,10 @@ def test_subdivide_scene_and_cli(tmp_path):
     """--upsample: Loop subdivision of every scene mesh on the offline path."""
     import jax
 
-    from lens_flare_tpu.cli import main
-    from lens_flare_tpu.renderer import Renderer
-    from lens_flare_tpu.scene.build import load_scene
-    from lens_flare_tpu.scene.halfedge import subdivide_scene
+    from lens_flare.cli import main
+    from lens_flare.renderer import Renderer
+    from lens_flare.scene.build import load_scene
+    from lens_flare.scene.halfedge import subdivide_scene
 
     dae = "/root/reference/dae/pyramid.dae"
     scene, _ = load_scene(dae)

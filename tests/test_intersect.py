@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from lens_flare_tpu.accel import build_bvh
-from lens_flare_tpu.oracle import tracer as oracle
-from lens_flare_tpu.ops import intersect_rays, occluded_rays, scene_to_device
-from lens_flare_tpu.scene.build import load_scene
-from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+from lens_flare.accel import build_bvh
+from lens_flare.oracle import tracer as oracle
+from lens_flare.ops import intersect_rays, occluded_rays, scene_to_device
+from lens_flare.scene.build import load_scene
+from lens_flare.scene.camera import Camera, place_from_scene_info
 
 
 def _setup(pyramid_scene, method):

@@ -5,15 +5,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lens_flare_tpu.integrator.path import BokehMask
-from lens_flare_tpu.lens.prescription import reference_prescription
-from lens_flare_tpu.lens.realistic import (
+from lens_flare.integrator.path import BokehMask
+from lens_flare.lens.prescription import reference_prescription
+from lens_flare.lens.realistic import (
     fresnel_dielectric,
     render_ghosts_stack,
     surface_z,
     trace_ghost_stack,
 )
-from lens_flare_tpu.scene.camera import (
+from lens_flare.scene.camera import (
     Camera,
     CameraParams,
     generate_rays,
@@ -129,7 +129,7 @@ def test_finite_difference_gradient_matches():
     (BASELINE north star).  Checked on the smooth paraxial trace in f64;
     the rasterizer's nearest-neighbor fetch is piecewise-constant so FD
     noise there is expected and not a gradient bug."""
-    from lens_flare_tpu.lens.paraxial import trace_all_ghosts
+    from lens_flare.lens.paraxial import trace_all_ghosts
 
     jax.config.update("jax_enable_x64", True)
     try:
@@ -155,7 +155,7 @@ def test_finite_difference_gradient_matches():
 
 
 def test_optimize_lens_reduces_loss(tmp_path):
-    from lens_flare_tpu.diff.optimize import OptimizeConfig, ghost_image, optimize_lens
+    from lens_flare.diff.optimize import OptimizeConfig, ghost_image, optimize_lens
 
     tex = jnp.ones((8, 8), jnp.float32) * 0.8
     axis = jnp.asarray([0.6, 0.55])
@@ -178,12 +178,12 @@ def test_optimize_lens_reduces_loss(tmp_path):
 
 def test_adaptive_sampling_stops_early(pyramid_scene):
     """Converged pixels stop sampling before ns_aa (pathtracer.cpp:862-868)."""
-    from lens_flare_tpu.accel import build_bvh
-    from lens_flare_tpu.integrator.lights import lights_to_device
-    from lens_flare_tpu.integrator.path import SceneBundle, make_settings, render_wavefront
-    from lens_flare_tpu.integrator.shading import bsdf_to_device
-    from lens_flare_tpu.ops import scene_to_device
-    from lens_flare_tpu.scene.camera import place_from_scene_info
+    from lens_flare.accel import build_bvh
+    from lens_flare.integrator.lights import lights_to_device
+    from lens_flare.integrator.path import SceneBundle, make_settings, render_wavefront
+    from lens_flare.integrator.shading import bsdf_to_device
+    from lens_flare.ops import scene_to_device
+    from lens_flare.scene.camera import place_from_scene_info
 
     scene, info = pyramid_scene
     lo, hi = scene.primitive_bboxes()
@@ -222,7 +222,7 @@ def test_config3_realistic_ghosts_over_env_render(dae_dir):
     """BASELINE config 3: HDR-sky env render + physically-based Fresnel ghosts."""
     import numpy as np
 
-    from lens_flare_tpu.renderer import Renderer
+    from lens_flare.renderer import Renderer
 
     env = np.full((8, 16, 3), 1.0, np.float32)
     env[2, 5] = [200.0, 180.0, 150.0]  # sun texel
@@ -299,8 +299,8 @@ def test_realistic_stack_fd_gradient():
 def test_realistic_pipeline_composite(dae_dir):
     """--lens-model realistic end-to-end: the FlarePipeline dispatches to the
     sequential stack trace and adds ghost energy to the film."""
-    from lens_flare_tpu.flare.pipeline import FlarePipeline
-    from lens_flare_tpu.renderer import Renderer
+    from lens_flare.flare.pipeline import FlarePipeline
+    from lens_flare.renderer import Renderer
 
     r = Renderer(width=48, height=48, ns_aa=1, max_ray_depth=1, indirect=False,
                  lens_model="realistic", tile_pixels=2304)
@@ -318,11 +318,11 @@ def test_realistic_pipeline_composite(dae_dir):
 
 def test_batched_trace_matches_unrolled():
     """The event-table lax.scan trace == the per-pair unrolled trace."""
-    from lens_flare_tpu.lens.realistic import (
+    from lens_flare.lens.realistic import (
         build_event_table,
         trace_ghosts_batched,
     )
-    from lens_flare_tpu.lens.paraxial import reference_ghost_pairs
+    from lens_flare.lens.paraxial import reference_ghost_pairs
 
     lens = reference_prescription()
     rng = np.random.default_rng(0)
@@ -401,7 +401,7 @@ def test_realistic_linearizes_to_physical_paraxial():
     """
     import jax
 
-    from lens_flare_tpu.lens.paraxial import (
+    from lens_flare.lens.paraxial import (
         physical_ghost_matrix,
         reference_ghost_pairs,
     )
@@ -438,7 +438,7 @@ def test_realistic_small_angle_convergence_order():
     """
     import jax
 
-    from lens_flare_tpu.lens.paraxial import physical_ghost_matrix
+    from lens_flare.lens.paraxial import physical_ghost_matrix
 
     jax.config.update("jax_enable_x64", True)
     try:
@@ -474,7 +474,7 @@ def test_reference_paraxial_quirk_documented():
     """
     import jax
 
-    from lens_flare_tpu.lens.paraxial import (
+    from lens_flare.lens.paraxial import (
         build_matrices,
         physical_ghost_matrix,
         trace_ghost,
@@ -517,7 +517,7 @@ def test_config5_optimizes_realistic_stack():
     import jax
     import optax
 
-    from lens_flare_tpu.lens.realistic import render_ghosts_stack
+    from lens_flare.lens.realistic import render_ghosts_stack
 
     W = H = 64
     pairs = ((0, 1), (2, 4), (6, 8))

@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lens_flare_tpu.integrator.lights import lights_to_device, sample_light
-from lens_flare_tpu.scene.build import (
+from lens_flare.integrator.lights import lights_to_device, sample_light
+from lens_flare.scene.build import (
     LT_AREA,
     LightTable,
     add_mesh_light,
@@ -81,7 +81,7 @@ def test_mesh_light_matches_area_light():
     L = np.array([1.0, 2.0, 3.0])
     li_mesh = add_mesh_light(t, quad, L)
 
-    from lens_flare_tpu.scene.build import _append_light_row
+    from lens_flare.scene.build import _append_light_row
 
     li_area = _append_light_row(
         t,
@@ -116,8 +116,8 @@ def test_mesh_light_matches_area_light():
 def test_sample_light_static_matches_dynamic_all_families():
     """sample_light_static (the NEE fast path with host-static row/type) is
     bit-identical to the generic gather-based sample_light for every family."""
-    from lens_flare_tpu.integrator.lights import sample_light_static
-    from lens_flare_tpu.scene.build import (
+    from lens_flare.integrator.lights import sample_light_static
+    from lens_flare.scene.build import (
         LT_DIRECTIONAL,
         LT_HEMISPHERE,
         LT_POINT,

@@ -2,7 +2,7 @@
 
 Exercises ``parallel.mesh.init_distributed`` for real: two OS processes,
 each with 2 virtual CPU devices, form one 4-device global mesh via a local
-coordinator (the CPU stand-in for ``jax.distributed.initialize`` on a pod —
+coordinator (the CPU stand-in for ``jax.distributed.initialize`` on a cluster —
 SURVEY.md §4 / §5.8).  Process 0's sharded render must be bit-identical to
 a single-process render, and the sharded lens-train step must execute.
 """

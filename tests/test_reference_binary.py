@@ -51,8 +51,8 @@ def cameras(tmp_path_factory):
     (raytrace_starburst indexes flare_origins[0] unconditionally,
     pathtracer.cpp:918).
     """
-    from lens_flare_tpu.scene.build import load_scene
-    from lens_flare_tpu.scene.camera import (
+    from lens_flare.scene.build import load_scene
+    from lens_flare.scene.camera import (
         Camera,
         place_from_scene_info,
         project_world_to_screen,
@@ -97,7 +97,7 @@ def _run_reference(cam_file, out_png, cwd):
 
 
 def _render_ours(cam_file, out_png):
-    from lens_flare_tpu.renderer import Renderer
+    from lens_flare.renderer import Renderer
 
     r = Renderer(
         width=W, height=H, ns_aa=SPP, max_ray_depth=1, ns_area_light=4,
@@ -109,9 +109,17 @@ def _render_ours(cam_file, out_png):
     r.render_to_file(str(out_png))
 
 
-def test_reference_binary_golden(cameras, tmp_path):
-    from PIL import Image
+def _rgb(path):
+    """A PNG's RGB values (0-255) as float32 (gray replicated, alpha dropped)."""
+    from lens_flare.utils.image import read_png
 
+    a = read_png(path)
+    if a.ndim == 2:
+        a = a[..., None].repeat(3, axis=-1)
+    return a[..., :3].astype(np.float32)
+
+
+def test_reference_binary_golden(cameras, tmp_path):
     cam_ours, cam_ref, sun_ns = cameras
     ref_png = tmp_path / "ref.png"
     ours_png = tmp_path / "ours.png"
@@ -119,8 +127,8 @@ def test_reference_binary_golden(cameras, tmp_path):
     _run_reference(cam_ref, ref_png, tmp_path)
     _render_ours(cam_ours, ours_png)
 
-    a = np.asarray(Image.open(ref_png).convert("RGB"), np.float32)
-    b = np.asarray(Image.open(ours_png).convert("RGB"), np.float32)
+    a = _rgb(ref_png)
+    b = _rgb(ours_png)
     assert a.shape == b.shape == (H, W, 3)
     d = np.abs(a - b)
     # measured at 64 spp: mean ~1.7, p99 ~35 (Monte-Carlo noise of the area
@@ -169,9 +177,7 @@ def test_reference_binary_hemisphere_estimator(cameras, tmp_path):
     CBspheres_lambertian), so this stays on the pyramid camera with the
     flare identical on both sides.
     """
-    from PIL import Image
-
-    from lens_flare_tpu.renderer import Renderer
+    from lens_flare.renderer import Renderer
 
     cam_ours, cam_ref, _ = cameras
     ref_png = tmp_path / "ref_h.png"
@@ -196,8 +202,8 @@ def test_reference_binary_hemisphere_estimator(cameras, tmp_path):
     r.load(SCENE)
     r.render_to_file(str(ours_png))
 
-    a = np.asarray(Image.open(ref_png).convert("RGB"), np.float32)
-    b = np.asarray(Image.open(ours_png).convert("RGB"), np.float32)
+    a = _rgb(ref_png)
+    b = _rgb(ours_png)
     d = np.abs(a - b)
     # hemisphere sampling only sees AREA emitters (delta lights have zero
     # measure), so the image is mostly flare + emission — still a real
@@ -215,11 +221,9 @@ def test_reference_binary_teapot_mesh(tmp_path):
     the flare path stays alive (binary requirement) while the mesh fills
     ~16% of the frame.
     """
-    from PIL import Image
-
-    from lens_flare_tpu.renderer import Renderer
-    from lens_flare_tpu.scene.build import load_scene
-    from lens_flare_tpu.scene.camera import (
+    from lens_flare.renderer import Renderer
+    from lens_flare.scene.build import load_scene
+    from lens_flare.scene.camera import (
         Camera,
         place_from_scene_info,
         project_world_to_screen,
@@ -267,8 +271,8 @@ def test_reference_binary_teapot_mesh(tmp_path):
     r.load(scene_path)
     r.render_to_file(str(ours_png))
 
-    a = np.asarray(Image.open(ref_png).convert("RGB"), np.float32)
-    b = np.asarray(Image.open(ours_png).convert("RGB"), np.float32)
+    a = _rgb(ref_png)
+    b = _rgb(ours_png)
     d = np.abs(a - b)
     assert d.mean() < 6.0, f"mean abs diff {d.mean():.2f}/255"
     assert np.percentile(d, 99) < 60.0

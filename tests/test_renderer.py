@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lens_flare_tpu.renderer import Renderer
+from lens_flare.renderer import Renderer
 
 
 def _small_renderer(dae, **kw):
@@ -61,7 +61,7 @@ def test_env_render_lights_scene(dae_dir):
 
 def test_starburst_differentiable_wrt_aperture():
     """Pixel gradients flow to the aperture mask (BASELINE config 5 surface)."""
-    from lens_flare_tpu.flare.starburst import aperture_fft, starburst_field
+    from lens_flare.flare.starburst import aperture_fft, starburst_field
 
     ap = jnp.asarray(np.random.default_rng(0).uniform(0.2, 1.0, (16, 16)), jnp.float32)
 
@@ -116,7 +116,7 @@ def test_cli_end_to_end(dae_dir, tmp_path):
 
     out = tmp_path / "out.png"
     cmd = [
-        sys.executable, "-m", "lens_flare_tpu.cli",
+        sys.executable, "-m", "lens_flare.cli",
         "-s", "2", "-l", "1", "-m", "1", "-r", "24", "24",
         "-f", str(out), str(dae_dir / "pyramid.dae"),
     ]
@@ -133,7 +133,7 @@ def test_build_idempotent_with_envmap(dae_dir):
     """_build() twice must not duplicate the env-light NEE row (VERDICT r1 w5)."""
     import numpy as np
 
-    from lens_flare_tpu.renderer import Renderer
+    from lens_flare.renderer import Renderer
 
     env = np.full((4, 8, 3), 0.5, np.float32)
     r = Renderer(width=16, height=16, ns_aa=1, max_ray_depth=1, indirect=False, envmap=env)
@@ -243,7 +243,7 @@ def test_cli_devices_flag_drives_mesh(dae_dir, tmp_path):
     for name, flags in [("one", ["--devices", "1"]), ("eight", ["-t", "8"])]:
         out = tmp_path / f"{name}.png"
         cmd = [
-            sys.executable, "-m", "lens_flare_tpu.cli",
+            sys.executable, "-m", "lens_flare.cli",
             "-s", "2", "-m", "1", "-r", "24", "24", *flags,
             "-f", str(out), str(dae_dir / "pyramid.dae"),
         ]
@@ -356,7 +356,7 @@ def test_cli_profiler_trace(dae_dir, tmp_path):
     out = tmp_path / "out.png"
     tdir = tmp_path / "trace"
     cmd = [
-        sys.executable, "-m", "lens_flare_tpu.cli",
+        sys.executable, "-m", "lens_flare.cli",
         "-s", "1", "-m", "1", "-r", "16", "16",
         "--trace", str(tdir),
         "-f", str(out), str(dae_dir / "pyramid.dae"),

@@ -4,10 +4,10 @@ import math
 
 import numpy as np
 
-from lens_flare_tpu.scene.build import load_scene
-from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
-from lens_flare_tpu.utils import exr
-from lens_flare_tpu.utils.image import sampling_rate_heatmap, to_color
+from lens_flare.scene.build import load_scene
+from lens_flare.scene.camera import Camera, place_from_scene_info
+from lens_flare.utils import exr
+from lens_flare.utils.image import sampling_rate_heatmap, to_color
 
 
 def test_pyramid_scene_contents(pyramid_scene):
@@ -40,7 +40,7 @@ def test_microfacet_scene(dae_dir):
 
 def test_camera_configure_aspect_fixup():
     """FOV is expanded along the too-narrow dimension (camera.cpp:69-88)."""
-    from lens_flare_tpu.scene.collada import CameraInfo
+    from lens_flare.scene.collada import CameraInfo
 
     cam = Camera()
     info = CameraInfo(h_fov=39.59775, v_fov=22.9, n_clip=0.1, f_clip=100.0)
@@ -125,7 +125,7 @@ def test_camera_frame_dump(tmp_path):
 
 
 def test_envmap_probability_debug(tmp_path):
-    from lens_flare_tpu.integrator import envlight
+    from lens_flare.integrator import envlight
 
     env = envlight.build_env(np.random.default_rng(0).uniform(0, 2, (8, 16, 3)).astype(np.float32))
     out = tmp_path / "prob.png"
@@ -134,7 +134,7 @@ def test_envmap_probability_debug(tmp_path):
 
 
 def test_procedural_terrain_scene():
-    from lens_flare_tpu.scene.procedural import make_terrain_scene
+    from lens_flare.scene.procedural import make_terrain_scene
 
     scene = make_terrain_scene(16)
     assert scene.num_triangles == 2 * 16 * 16

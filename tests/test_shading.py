@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lens_flare_tpu.integrator import shading
-from lens_flare_tpu.oracle import tracer as oracle
-from lens_flare_tpu.scene.build import BSDFTable
-from lens_flare_tpu.scene.collada import (
+from lens_flare.integrator import shading
+from lens_flare.oracle import tracer as oracle
+from lens_flare.scene.build import BSDFTable
+from lens_flare.scene.collada import (
     BSDF_DIFFUSE,
     BSDF_GLASS,
     BSDF_MICROFACET,
@@ -172,8 +172,8 @@ def test_spot_light_cone_falloff():
     """Spot lights (stub in the reference) have smooth cone falloff."""
     import jax.numpy as jnp
 
-    from lens_flare_tpu.integrator.lights import LightArrays, sample_light
-    from lens_flare_tpu.scene.build import LT_SPOT
+    from lens_flare.integrator.lights import LightArrays, sample_light
+    from lens_flare.scene.build import LT_SPOT
 
     lights = LightArrays(
         light_type=jnp.asarray([LT_SPOT]),

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from lens_flare_tpu.accel import build_bvh
-from lens_flare_tpu.integrator.lights import lights_to_device
-from lens_flare_tpu.integrator.path import SceneBundle, make_settings, render_wavefront
-from lens_flare_tpu.integrator.shading import bsdf_to_device
-from lens_flare_tpu.ops import scene_to_device
-from lens_flare_tpu.parallel.mesh import make_mesh, replicate, shard_batch
-from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+from lens_flare.accel import build_bvh
+from lens_flare.integrator.lights import lights_to_device
+from lens_flare.integrator.path import SceneBundle, make_settings, render_wavefront
+from lens_flare.integrator.shading import bsdf_to_device
+from lens_flare.ops import scene_to_device
+from lens_flare.parallel.mesh import make_mesh, replicate, shard_batch
+from lens_flare.scene.camera import Camera, place_from_scene_info
 
 
 def _bundle(pyramid_scene, width, height):
@@ -62,8 +62,8 @@ def test_sharded_render_matches_single_device(pyramid_scene):
 
 def test_sharded_lens_grad_matches(pyramid_scene):
     """Lens-design gradients with a sharded target == unsharded gradients."""
-    from lens_flare_tpu.lens.prescription import reference_prescription
-    from lens_flare_tpu.parallel.render import ghost_image_from_lens
+    from lens_flare.lens.prescription import reference_prescription
+    from lens_flare.parallel.render import ghost_image_from_lens
 
     width = height = 24
     lens = reference_prescription()
@@ -100,9 +100,9 @@ def test_rowsharded_train_step_shards_the_work():
     import optax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from lens_flare_tpu.lens.prescription import reference_prescription
-    from lens_flare_tpu.parallel.mesh import BATCH_AXIS, make_mesh
-    from lens_flare_tpu.parallel.render import ghost_image_from_lens, make_train_step
+    from lens_flare.lens.prescription import reference_prescription
+    from lens_flare.parallel.mesh import BATCH_AXIS, make_mesh
+    from lens_flare.parallel.render import ghost_image_from_lens, make_train_step
 
     mesh = make_mesh()
     lens = reference_prescription()

@@ -14,7 +14,7 @@ import jax
 import numpy as np
 import pytest
 
-from lens_flare_tpu.renderer import Renderer
+from lens_flare.renderer import Renderer
 
 # Snapshot values were captured on this backend; f32 reassociation differs
 # across XLA backends/compiler versions, so on any other backend the check

@@ -10,10 +10,10 @@ plus the delta-BSDF stubs it was meant to drive (advanced_bsdf.cpp:17-145).
 import numpy as np
 import jax.numpy as jnp
 
-from lens_flare_tpu.renderer import Renderer
-from lens_flare_tpu.scene.build import BSDFTable, FlatScene, LightTable, LT_AREA
-from lens_flare_tpu.scene.camera import Camera
-from lens_flare_tpu.scene.collada import (
+from lens_flare.renderer import Renderer
+from lens_flare.scene.build import BSDFTable, FlatScene, LightTable, LT_AREA
+from lens_flare.scene.camera import Camera
+from lens_flare.scene.collada import (
     BSDF_EMISSION,
     BSDF_MIRROR,
     MaterialInfo,
@@ -95,7 +95,7 @@ def test_area_light_visible_in_mirror():
 def test_no_double_counting_on_diffuse():
     """A diffuse plane under the same light gets its energy from NEE only:
     the delta pickup must NOT fire for diffuse chains (double counting)."""
-    from lens_flare_tpu.scene.collada import BSDF_DIFFUSE
+    from lens_flare.scene.collada import BSDF_DIFFUSE
 
     scene = _mirror_scene()
     # swap the mirror for a white diffuse plane

@@ -29,8 +29,8 @@ def main():
     ap.add_argument("-m", type=int, default=2, dest="depth")
     args = ap.parse_args()
 
-    from lens_flare_tpu.renderer import Renderer
-    from lens_flare_tpu.utils import image as img
+    from lens_flare.renderer import Renderer
+    from lens_flare.utils import image as img
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

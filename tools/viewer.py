@@ -1,7 +1,7 @@
 """Standalone launcher for the interactive terminal viewer.
 
-Thin wrapper over :mod:`lens_flare_tpu.term_viewer` (the front-end) and
-:mod:`lens_flare_tpu.app` (the EDIT/VISUALIZE/RENDER state machine).  The
+Thin wrapper over :mod:`lens_flare.term_viewer` (the front-end) and
+:mod:`lens_flare.app` (the EDIT/VISUALIZE/RENDER state machine).  The
 main CLI's ``--view`` flag reaches the same viewer with the full flag
 surface; this script exists for quick ad-hoc use:
 
@@ -32,9 +32,9 @@ def main():
     ap.add_argument("-f", dest="filename", default="screenshot")
     args = ap.parse_args()
 
-    from lens_flare_tpu.app import Application
-    from lens_flare_tpu.renderer import Renderer
-    from lens_flare_tpu.term_viewer import run_viewer
+    from lens_flare.app import Application
+    from lens_flare.renderer import Renderer
+    from lens_flare.term_viewer import run_viewer
 
     r = Renderer(
         width=args.r[0], height=args.r[1], ns_aa=args.ns_aa,

@@ -34,10 +34,10 @@ def main():
     import matplotlib.pyplot as plt
     from matplotlib.patches import Rectangle
 
-    from lens_flare_tpu.accel import build_bvh
-    from lens_flare_tpu.oracle import tracer as oracle
-    from lens_flare_tpu.scene.build import load_scene
-    from lens_flare_tpu.scene.camera import Camera, place_from_scene_info
+    from lens_flare.accel import build_bvh
+    from lens_flare.oracle import tracer as oracle
+    from lens_flare.scene.build import load_scene
+    from lens_flare.scene.camera import Camera, place_from_scene_info
 
     scene, info = load_scene(args.scene)
     lo, hi = scene.primitive_bboxes()
